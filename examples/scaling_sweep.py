@@ -4,14 +4,14 @@ Mirror of the reference ``submit_scalability_multi_nodes.sh`` (1-32 MPI
 ranks x {Block, Graph} partitioning on the repressilator): runs the
 repressilator SpMV hot loop over increasing mesh sizes for
 
-* the dense-box operator (fused sharded Pallas kernel when available —
-  parallel/halo_box.py — else the GSPMD stencil path), and
+* the dense-box operator (GSPMD stencil: XLA inserts the halo
+  collective-permutes), and
 * the compressed ELL operator with the explicit halo-exchange plan
   (parallel/halo_ell.py) under BLOCK and GRAPH orderings,
 
 and reports throughput, parallel efficiency, and the exchange sizes.
 
-On real hardware this needs a multi-chip slice; for a functional check it
+On real hardware this needs a multi-GPU host; for a functional check it
 runs on virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -60,7 +60,7 @@ def main(argv=None):
     b = pm.models.repressilator()
 
     # ---- dense-box path (hyper-rectangle stage of the reference bench)
-    print("== box operator (fused kernel when available) ==")
+    print("== box operator (GSPMD stencil) ==")
     cs = ConstraintSet(None, np.array([bound] * 3), np.full(3, 0.2))
     base = None
     n = 1
@@ -68,7 +68,7 @@ def main(argv=None):
         space = BoxStateSpace(b.model.stoichiometry, cs, b.x0,
                               pad_quanta=[max_dev, 1, 1])
         mesh = make_mesh(n) if n > 1 else None
-        op = BoxOperator(b.model, space, mesh=mesh)
+        op = BoxOperator(b.model, space)
         rng = np.random.default_rng(0)
         p = rng.random(space.shape) * np.asarray(jax.device_get(op.mask_f))
         y = FspVector(p=jnp.asarray(p, op.dtype),
@@ -79,13 +79,8 @@ def main(argv=None):
         thr = op.nnz() / dt
         if base is None:
             base = thr
-        path = ("pallas-sharded" if mesh is not None and op._pallas
-                else "pallas" if op._pallas else "xla-stencil")
-        comm = (op._pallas.comm_values_per_matvec()
-                if mesh is not None and op._pallas else 0)
-        print(f"devices={n:2d} [{path:14s}] {dt*1e6:9.1f} us/matvec "
-              f"{thr/1e9:8.3f} Gnnz/s  eff={thr/(base*n):6.1%}  "
-              f"comm={comm} vals/mv")
+        print(f"devices={n:2d} {dt*1e6:9.1f} us/matvec "
+              f"{thr/1e9:8.3f} Gnnz/s  eff={thr/(base*n):6.1%}")
         n *= 2
 
     # ---- compressed ELL path, BLOCK vs GRAPH (reference sweep axes)

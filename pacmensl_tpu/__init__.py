@@ -1,8 +1,8 @@
-"""pacmensl_tpu — a TPU-native Finite State Projection (FSP) framework.
+"""pacmensl_tpu — a JAX Finite State Projection (FSP) framework.
 
 A from-scratch re-design of the capabilities of pacmensl (PArallel Chemical
-Master EquatioN Solver Library, C++/MPI/PETSc) for TPU hardware with
-JAX/XLA/Pallas: solve the Chemical Master Equation of stochastic reaction
+Master EquatioN Solver Library, C++/MPI/PETSc) for accelerators with
+JAX/XLA: solve the Chemical Master Equation of stochastic reaction
 networks by adaptive Finite State Projection — transient distributions,
 forward parameter sensitivities and Fisher information, stationary
 distributions, and smFISH likelihoods — on one chip or a sharded device mesh.
@@ -22,7 +22,7 @@ Quick start::
 """
 from . import config  # noqa: F401  (must run first: sets jax_enable_x64)
 
-from .config import DEFAULT_DTYPE, default_dtype, x64_enabled  # noqa: F401
+from .config import DEFAULT_DTYPE, default_dtype  # noqa: F401
 from .sys import errors  # noqa: F401
 from .sys.errors import (  # noqa: F401
     PacmenslError, SetupError, StateSpaceError, IntegratorError)

@@ -30,8 +30,8 @@ from .model import Model, SensModel
 def _f(x):
     """Cast states to a float dtype for propensity arithmetic, keeping the
     caller's compute dtype (the operators pass float32/float64 coordinate
-    grids; hard-coding float64 would drag TPU kernels onto the emulated-f64
-    path)."""
+    grids; hard-coding float64 would promote a float32 operator's
+    arithmetic to float64)."""
     import jax.numpy as _jnp
     if _jnp.issubdtype(x.dtype, _jnp.floating):
         return x
@@ -41,10 +41,10 @@ def _f(x):
 def _ipow(x, n: int):
     """x**n for small non-negative integer n by repeated squaring.
 
-    Propensities are re-evaluated in-register by the fused Pallas kernel
-    (pallas_box) on every matvec; ``jnp.power`` with a float exponent
-    lowers to a transcendental pow (dozens of VPU cycles/element), while
-    integer Hill exponents (the reference models use pow(x, 6.0) etc.,
+    The matrix-free box operator re-evaluates propensities on every
+    matvec; ``jnp.power`` with a float exponent lowers to a
+    transcendental pow (exp + log per element), while integer Hill
+    exponents (the reference models use pow(x, 6.0) etc.,
     repressilator_model.h:15,39) need only log2(n) multiplies.
     """
     assert n >= 1 and n == int(n)
@@ -108,9 +108,6 @@ def toggle() -> BundledModel:
     def constr(x):
         return jnp.stack([x[:, 0], x[:, 1], x[:, 0] * x[:, 1]], axis=1)
 
-    constr.components = (lambda x: x[:, 0], lambda x: x[:, 1],
-                         lambda x: x[:, 0] * x[:, 1])
-
     return BundledModel(
         model=Model(stoich, prop),
         constraint=constr,
@@ -153,11 +150,6 @@ def repressilator() -> BundledModel:
             x[:, 0], x[:, 1], x[:, 2],
             x[:, 0] * x[:, 1], x[:, 2] * x[:, 1], x[:, 0] * x[:, 2],
         ], axis=1)
-
-    constr.components = (
-        lambda x: x[:, 0], lambda x: x[:, 1], lambda x: x[:, 2],
-        lambda x: x[:, 0] * x[:, 1], lambda x: x[:, 2] * x[:, 1],
-        lambda x: x[:, 0] * x[:, 2])
 
     return BundledModel(
         model=Model(stoich, prop),
@@ -231,11 +223,6 @@ def hog1p_5d() -> BundledModel:
             x[:, 1] + x[:, 3], x[:, 2] + x[:, 4],
         ], axis=1)
 
-    constr.components = (
-        lambda x: x[:, 0], lambda x: x[:, 1], lambda x: x[:, 2],
-        lambda x: x[:, 3], lambda x: x[:, 4],
-        lambda x: x[:, 1] + x[:, 3], lambda x: x[:, 2] + x[:, 4])
-
     return BundledModel(
         model=Model(stoich, prop, t_coeff, tv_reactions=(2,)),
         constraint=constr,
@@ -290,11 +277,6 @@ def hog1p_3d() -> BundledModel:
             (x[:, 0] == 0) * rna, (x[:, 0] == 1) * rna,
             (x[:, 0] == 2) * rna, (x[:, 0] == 3) * rna,
         ], axis=1)
-
-    constr.components = tuple(
-        [lambda x: x[:, 0], lambda x: x[:, 1], lambda x: x[:, 2]] +
-        [(lambda x, _g=g: (x[:, 0] == _g) * (x[:, 1] + x[:, 2]))
-         for g in range(4)])
 
     return BundledModel(
         model=Model(stoich, prop, t_coeff, tv_reactions=(2,)),

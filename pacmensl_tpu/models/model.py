@@ -1,6 +1,6 @@
 """Reaction-network model descriptions.
 
-TPU-native re-design of the reference ``Model``/``SensModel``
+Re-design of the reference ``Model``/``SensModel``
 (``src/Models/Model.h:63-99``, ``src/Models/SensModel.h:58-97``).
 
 Propensities factorize as ``a_r(t, x) = c_r(t) * d_r(x)`` where the time
@@ -16,8 +16,8 @@ Differences from the reference, by design:
     ``states + stoich[r]`` arithmetic (the reference stores the transpose);
   * propensity callbacks are JAX-traceable *batched* functions
     ``propensity(states[n, S], reaction) -> rates[n]`` evaluated under jit —
-    they trace directly into the matrix-free operators and Pallas kernels, so
-    propensity evaluation costs zero HBM traffic in the hot loop.
+    they trace directly into the matrix-free operators, so propensity
+    evaluation costs no device-memory traffic in the hot loop.
 """
 from __future__ import annotations
 

@@ -1,15 +1,14 @@
 """Double-float ("df64") arithmetic: ~49-bit-mantissa reals as unevaluated
 sums of two float32s, built from error-free transformations (Knuth two-sum,
-Dekker split / two-prod).  TPU v5e has no native float64 (the XLA x64
-rewrite truncates to f32); this module provides the precision path the
-reference gets for free from CPU doubles (CVODE/PETSc run f64 throughout,
+Dekker split / two-prod).  This module provides, from float32 storage,
+the precision the reference gets from CPU doubles (CVODE/PETSc run f64 throughout,
 ``src/OdeSolver/CvodeFsp.cpp:137-200``) for the accumulations where f32
-demonstrably walls out — measured: the stationary Jacobi-GMRES diverges at
-n=96k on the repressilator in f32 (BASELINE.md round-4 config 5).
+demonstrably walls out (the stationary Jacobi-GMRES diverges on the
+repressilator in f32).
 
 Representation: a pair ``(hi, lo)`` of same-shaped f32 arrays with
 ``|lo| <= ulp(hi)/2``; value = hi + lo.  All ops are elementwise
-jnp-traceable and TPU-compatible (no FMA assumption: Dekker splitting).
+jnp-traceable (no FMA assumption: Dekker splitting).
 
 Accuracy: add/mul are accurate to O(eps_f32^2) ~ 1e-14 relative — between
 f32 (6e-8) and f64 (1e-16), enough for 1e-12 GMRES targets at moderate n.

@@ -1,11 +1,11 @@
-"""Dense matrix exponential for small (Hessenberg) matrices, TPU-safe.
+"""Dense matrix exponential for small (Hessenberg) matrices, matmul-only.
 
 ``jax.scipy.linalg.expm`` lowers to an LU decomposition (Pade solve) that
-TPU only implements for f32/c64; the Krylov integrator needs f64 exps of
+not every backend implements in f64; the Krylov integrator needs f64 exps of
 its small Hessenberg matrices (the reference computes these with
 Armadillo's ``expmat`` on the host, ``src/OdeSolver/KrylovFsp.cpp:159``).
 This module implements scaling-and-squaring with a Taylor series —
-matmul-only, so it runs on the MXU in any dtype:
+matmul-only, so it runs in any dtype on any backend:
 
     s  = max(0, ceil(log2(||A||_inf)) + 1)     (traced)
     E  = sum_{k<=K} (A/2^s)^k / k!             (K=18; ||A/2^s|| <= 0.5)

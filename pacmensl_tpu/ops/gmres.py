@@ -101,7 +101,7 @@ def gmres(apply_A: Callable,
             (0, V, H, cs, sn, g, beta, nmv))
 
         # masked upper-triangular solve H[:k,:k] yk = g[:k] by explicit
-        # back-substitution (TPU's TriangularSolve lacks f64; m is small)
+        # back-substitution (no TriangularSolve dependency; m is small)
         k = j
         diag_fix = jnp.where(jnp.arange(m) < k, 0.0, 1.0)
         Hk = H[:m, :] + jnp.diag(diag_fix)

@@ -22,9 +22,8 @@ The forward-sensitivity system
 is *linear* in the stacked vector, so the combined operator plugs straight
 into every integrator in :mod:`..solvers` (the reference is restricted to
 CVODES staggered integration; here Krylov-expm sensitivity integration
-works too).  The ``A s_j`` applications are batched with ``vmap`` — on TPU
-the sensitivity matvecs ride the same fused kernels with an extra batch
-axis.
+works too).  The ``A s_j`` applications are batched with ``vmap``, so the
+sensitivity matvecs are the same operator with an extra batch axis.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ entries each rank's off-diagonal block touches.  The plain
 :class:`~pacmensl_tpu.ops.ell_operator.EllOperator` under GSPMD instead
 lowers its gather to an **all-gather** of the whole probability vector —
 correct, but O(n) bytes per device per matvec.  This module restores the
-reference's communication volume on TPU:
+reference's communication volume on a device mesh:
 
 * the state axis is block-partitioned over a 1-D device mesh (the
   reference's contiguous row partition, ``StateSetBase.h:133-144``);
@@ -15,7 +15,7 @@ reference's communication volume on TPU:
   local/remote, and per device-pair *request lists* are extracted — the
   moral equivalent of PETSc's VecScatter plan;
 * the hot loop runs under ``shard_map``: each device gathers the values its
-  neighbors asked for, one ``lax.all_to_all`` swaps them over ICI, and the
+  neighbors asked for, one ``lax.all_to_all`` swaps them, and the
   local ELL matvec reads from ``concat(local p, received halo)`` with a
   single unified gather.  Sink contributions are computed on local rows and
   ``psum``-reduced (the reference's sink VecScatter-add,
@@ -24,12 +24,11 @@ reference's communication volume on TPU:
 Communication per matvec: O(D * S) values (S = max per-pair halo size)
 instead of O(n_pad) — for the CME's stencil structure under a contiguous
 (or RCM-ordered, see the GRAPH partitioner) layout, S is a thin boundary
-band, so bytes-on-ICI scale with the *surface* of each shard, not its
+band, so bytes between devices scale with the *surface* of each shard, not its
 volume, exactly like the reference's MPI halos.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional, Sequence
 
 import numpy as np
@@ -48,7 +47,7 @@ from typing import NamedTuple
 from ..sys.environment import STATE_AXIS
 from ..models.model import Model
 from ..statespace.state_set import StateSet
-from ..ops.ell_operator import EllOperator
+from ..ops.ell_operator import EllOperator, _capacity_ladder
 from ..ops.vecops import FspVector
 
 
@@ -66,18 +65,25 @@ class ShardedEllData(NamedTuple):
     bucket are served by dynamic rolls of the LOCAL block, and only the
     residue (remote sources + off-bucket locals) reads the
     halo-extended vector — so the ``all_to_all`` feeds nothing but the
-    small residue gather and overlaps with the roll compute."""
+    small residue gather and overlaps with the roll compute.  They are
+    None in plain-gather mode."""
     send_idx: jnp.ndarray   # [D, D, S] int32 per-pair send gather plan
     src_uni: jnp.ndarray    # [D, R, L] int32 unified gather indices
     off: jnp.ndarray        # [D, R, L] off-diagonal values
     diag: jnp.ndarray       # [D, R, L] outflow values
     bits: jnp.ndarray       # [D, R, L] uint32 sink bitmasks
-    offs: jnp.ndarray       # [D, R, L] int32 local offset or L+1 sentinel
-    bdelta: jnp.ndarray     # [D, R, K] int32 per-shard top-K offsets
-    rem_row: jnp.ndarray    # [D, M] int32 residue destination rows
-    rem_src: jnp.ndarray    # [D, M] int32 residue indices into ext
-    rem_val: jnp.ndarray    # [D, M] residue off-diagonal values (0 pad)
-    rem_rid: jnp.ndarray    # [D, M] int32 residue reaction ids
+    offs: Optional[jnp.ndarray] = None     # [D, R, L] int32 local offset
+    #                                        or L+1 sentinel
+    bdelta: Optional[jnp.ndarray] = None   # [D, R, K] top-K offsets
+    rem_row: Optional[jnp.ndarray] = None  # [D, M] residue destination rows
+    rem_src: Optional[jnp.ndarray] = None  # [D, M] residue indices into ext
+    rem_val: Optional[jnp.ndarray] = None  # [D, M] residue values (0 pad)
+    rem_rid: Optional[jnp.ndarray] = None  # [D, M] residue reaction ids
+
+
+#: ShardedEllData fields only the bucket-shift gather reads
+_SH_BUCKET_FIELDS = ("offs", "bdelta", "rem_row", "rem_src", "rem_val",
+                     "rem_rid")
 
 
 class ShardedEllOperator(EllOperator):
@@ -105,14 +111,12 @@ class ShardedEllOperator(EllOperator):
         self._build_shards()
 
     def reassemble(self) -> bool:
-        grew = super().reassemble()
-        shapes_before = None if grew else jax.tree_util.tree_map(
-            lambda a: a.shape, self._sh_data)
+        # the shard plan's key holds every shape and static choice the
+        # compiled matvec bakes in (see _build_shards)
+        key = self._smapped_key
+        super().reassemble()
         self._build_shards()
-        if not grew:
-            grew = shapes_before != jax.tree_util.tree_map(
-                lambda a: a.shape, self._sh_data)
-        return grew
+        return self._smapped_key != key
 
     # --------------------------------------------------------- shard plan
     def _build_shards(self):
@@ -121,8 +125,8 @@ class ShardedEllOperator(EllOperator):
         D = self._D
         L = self.n_pad // D
         self.shard_len = L
-        src = np.asarray(jax.device_get(self.src_idx))      # [R, n_pad]
-        off = np.asarray(jax.device_get(self.off_val))
+        host = self._host_arrays                  # the assembly's arrays
+        src, off = host["src_idx"], host["off_val"]          # [R, n_pad]
         R = src.shape[0]
 
         owner = src // L
@@ -140,10 +144,10 @@ class ShardedEllOperator(EllOperator):
                 g = np.unique(src_d[use_d & (own_d == o)])
                 reqs[d][o] = g
                 s_max = max(s_max, g.size)
-        S = _round_up(s_max, 8)
-        self.halo_width = S                       # true need (for reports)
-        self._halo_floor = max(self._halo_floor, S)
-        S = self._halo_floor                      # padded (shape-stable)
+        self.halo_width = _round_up(s_max, 8)     # true need (for reports)
+        # laddered and monotone: most epochs keep the plan's shape
+        self._halo_floor = max(self._halo_floor, _capacity_ladder(s_max, 8))
+        S = self._halo_floor
 
         # send plan: on device o, send[e] = p_local[send_idx[o, e]]
         send_idx = np.zeros((D, D, S), np.int32)
@@ -173,9 +177,91 @@ class ShardedEllOperator(EllOperator):
             return np.ascontiguousarray(                    # [D, R, L]
                 np.asarray(a).reshape(a.shape[0], D, L).transpose(1, 0, 2))
 
-        off_sh = shardify(np.asarray(jax.device_get(self.off_val)))
+        off_sh = shardify(off)
 
-        # ---- per-shard bucket-shift plan (local rolls + residue) -------
+        mode = self._gather_mode()
+        # the bucket plan is built only for the bucket-shift gather
+        bucket, M = (self._bucket_plan(src_uni, off_sh) if mode == "bucket"
+                     else (None, None))
+
+        # host arrays go straight to their shards (no staging through one
+        # device, which would compile a resharding slice per shape)
+        row = NamedSharding(self.mesh, P(STATE_AXIS))
+        fdt = np.dtype(self.dtype)
+
+        def put(a, dtype=None):
+            return jax.device_put(np.asarray(a, dtype), row)
+
+        self._sh_data = ShardedEllData(
+            send_idx=put(send_idx),
+            src_uni=put(src_uni),
+            off=put(off_sh, fdt),
+            diag=put(shardify(host["diag_val"]), fdt),
+            bits=put(shardify(host["sink_bits"])),
+            **({} if bucket is None else {
+                f: put(bucket[f], fdt if f == "rem_val" else None)
+                for f in _SH_BUCKET_FIELDS}))
+
+        n_c = self.num_constraints
+        dtype = self.dtype
+        # the residue length M shapes only the bucket path's arguments
+        key = (self.shard_len, S, R, n_c, M, mode)
+        if key == self._smapped_key:
+            return                      # shapes unchanged: keep compiled fn
+        self._smapped_key = key
+
+        K_b = self.K_BUCKETS
+
+        def local_mv(c, p_loc, send_ix, src_u, off_l, diag_l, bits_l,
+                     *bucket_args):
+            send_ix = send_ix[0]            # [D, S]
+            src_u, off_l = src_u[0], off_l[0]
+            diag_l, bits_l = diag_l[0], bits_l[0]
+            # halo exchange: one all_to_all carries every pairwise list
+            send = p_loc[send_ix]                         # [D, S]
+            recv = lax.all_to_all(send, STATE_AXIS, 0, 0, tiled=True)
+            ext = jnp.concatenate([p_loc, recv.reshape(-1)])
+            if mode == "bucket":
+                (offs_l, bdelta_l, rrow_l, rsrc_l, rval_l,
+                 rrid_l) = (a[0] for a in bucket_args)
+                # local-bucket rolls; the all_to_all result feeds only
+                # the residue gather below, so it overlaps with them
+                inflow = jnp.zeros_like(p_loc)
+                for r in range(R):
+                    contrib = jnp.zeros_like(p_loc)
+                    for k in range(K_b):
+                        dlt = bdelta_l[r, k]
+                        pr = jnp.roll(p_loc, -dlt)
+                        w = jnp.where(offs_l[r] == dlt, off_l[r], 0.0)
+                        contrib = contrib + w * pr
+                    inflow = inflow + c[r] * contrib
+                upd = rval_l * ext[rsrc_l] * c[rrid_l]
+                inflow = inflow.at[rrow_l].add(upd)
+                dp = inflow - p_loc * (c @ diag_l)
+            else:
+                gathered = off_l * ext[src_u]             # [R, L]
+                dp = c @ gathered - p_loc * (c @ diag_l)
+            # sink rows on local states, reduced over the mesh
+            bit = jnp.arange(n_c, dtype=jnp.uint32)
+            viol = ((bits_l[:, None, :] >> bit[None, :, None]) & 1
+                    ).astype(dtype)
+            weighted = (c[:, None, None] * diag_l[:, None, :]) * viol
+            ds = jnp.tensordot(weighted, p_loc, axes=([2], [0])).sum(axis=0)
+            ds = lax.psum(ds, STATE_AXIS)
+            return dp, ds
+
+        n_args = 5 + (len(_SH_BUCKET_FIELDS) if mode == "bucket" else 0)
+        self._smapped = _shard_map(
+            local_mv, mesh=self.mesh,
+            in_specs=(P(), P(STATE_AXIS)) + (P(STATE_AXIS),) * n_args,
+            out_specs=(P(STATE_AXIS), P()))
+        self._smapped_bucket = mode == "bucket"
+
+    def _bucket_plan(self, src_uni, off_sh):
+        """Per-shard bucket-shift plan (local rolls + residue) for the
+        bucket gather: the ``_SH_BUCKET_FIELDS`` host arrays and the
+        laddered residue length M."""
+        D, R, L = off_sh.shape
         K = self.K_BUCKETS
         SENT = np.int32(L + 1)              # no local offset can equal it
         rows_l = np.arange(L, dtype=np.int64)
@@ -211,7 +297,7 @@ class ShardedEllOperator(EllOperator):
                     rem_total += idx.size
         m_max = max((sum(x[0].size for x in parts)
                      for parts in rem_lists), default=0)
-        M = max(_round_up(max(m_max, 1), 8),
+        M = max(_capacity_ladder(max(m_max, 1), 8),
                 getattr(self, "_rem_floor", 0))
         self._rem_floor = M
         self._rem_frac = rem_total / used_total
@@ -227,81 +313,14 @@ class ShardedEllOperator(EllOperator):
                 rem_val[d, o:o + rr.size] = vv
                 rem_rid[d, o:o + rr.size] = ii
                 o += rr.size
-
-        row = NamedSharding(self.mesh, P(STATE_AXIS))
-        put = partial(jax.device_put, device=row)
-        self._sh_data = ShardedEllData(
-            send_idx=put(jnp.asarray(send_idx)),
-            src_uni=put(jnp.asarray(src_uni)),
-            off=put(jnp.asarray(off_sh, self.dtype)),
-            diag=put(jnp.asarray(
-                shardify(np.asarray(jax.device_get(self.diag_val))),
-                self.dtype)),
-            bits=put(jnp.asarray(
-                shardify(np.asarray(jax.device_get(self.sink_bits))))),
-            offs=put(jnp.asarray(offs_sh)),
-            bdelta=put(jnp.asarray(bdelta)),
-            rem_row=put(jnp.asarray(rem_row)),
-            rem_src=put(jnp.asarray(rem_src)),
-            rem_val=put(jnp.asarray(rem_val, self.dtype)),
-            rem_rid=put(jnp.asarray(rem_rid)))
-
-        n_c = self.num_constraints
-        dtype = self.dtype
-        mode = self._gather_mode()
-        key = (self.shard_len, S, R, n_c, M, mode)
-        if key == self._smapped_key:
-            return                      # shapes unchanged: keep compiled fn
-        self._smapped_key = key
-
-        K_b = self.K_BUCKETS
-
-        def local_mv(c, p_loc, send_ix, src_u, off_l, diag_l, bits_l,
-                     offs_l, bdelta_l, rrow_l, rsrc_l, rval_l, rrid_l):
-            send_ix = send_ix[0]            # [D, S]
-            src_u, off_l = src_u[0], off_l[0]
-            diag_l, bits_l = diag_l[0], bits_l[0]
-            offs_l, bdelta_l = offs_l[0], bdelta_l[0]
-            rrow_l, rsrc_l = rrow_l[0], rsrc_l[0]
-            rval_l, rrid_l = rval_l[0], rrid_l[0]
-            # halo exchange: one all_to_all carries every pairwise list
-            send = p_loc[send_ix]                         # [D, S]
-            recv = lax.all_to_all(send, STATE_AXIS, 0, 0, tiled=True)
-            ext = jnp.concatenate([p_loc, recv.reshape(-1)])
-            if mode == "bucket":
-                # local-bucket rolls; the all_to_all result feeds only
-                # the residue gather below, so it overlaps with them
-                inflow = jnp.zeros_like(p_loc)
-                for r in range(R):
-                    contrib = jnp.zeros_like(p_loc)
-                    for k in range(K_b):
-                        dlt = bdelta_l[r, k]
-                        pr = jnp.roll(p_loc, -dlt)
-                        w = jnp.where(offs_l[r] == dlt, off_l[r], 0.0)
-                        contrib = contrib + w * pr
-                    inflow = inflow + c[r] * contrib
-                upd = rval_l * ext[rsrc_l] * c[rrid_l]
-                inflow = inflow.at[rrow_l].add(upd)
-                dp = inflow - p_loc * (c @ diag_l)
-            else:
-                gathered = off_l * ext[src_u]             # [R, L]
-                dp = c @ gathered - p_loc * (c @ diag_l)
-            # sink rows on local states, reduced over the mesh
-            bit = jnp.arange(n_c, dtype=jnp.uint32)
-            viol = ((bits_l[:, None, :] >> bit[None, :, None]) & 1
-                    ).astype(dtype)
-            weighted = (c[:, None, None] * diag_l[:, None, :]) * viol
-            ds = jnp.tensordot(weighted, p_loc, axes=([2], [0])).sum(axis=0)
-            ds = lax.psum(ds, STATE_AXIS)
-            return dp, ds
-
-        self._smapped = _shard_map(
-            local_mv, mesh=self.mesh,
-            in_specs=(P(), P(STATE_AXIS)) + (P(STATE_AXIS),) * 11,
-            out_specs=(P(STATE_AXIS), P()))
+        return {"offs": offs_sh, "bdelta": bdelta, "rem_row": rem_row,
+                "rem_src": rem_src, "rem_val": rem_val,
+                "rem_rid": rem_rid}, M
 
     # ------------------------------------------------------------ action
     def data(self) -> ShardedEllData:
+        """The epoch's shard plan (the bucket fields are None in
+        plain-gather mode)."""
         return self._sh_data
 
     def action(self, t, y: FspVector,
@@ -310,11 +329,10 @@ class ShardedEllOperator(EllOperator):
             data = self._sh_data
         c_full = self.model.coefficients(t, self.dtype)
         c = jnp.asarray([c_full[r] for r in self.enable_reactions])
-        dp, dsinks = self._smapped(c, y.p, data.send_idx, data.src_uni,
-                                   data.off, data.diag, data.bits,
-                                   data.offs, data.bdelta, data.rem_row,
-                                   data.rem_src, data.rem_val,
-                                   data.rem_rid)
+        args = (data.send_idx, data.src_uni, data.off, data.diag, data.bits)
+        if self._smapped_bucket:
+            args += tuple(getattr(data, f) for f in _SH_BUCKET_FIELDS)
+        dp, dsinks = self._smapped(c, y.p, *args)
         return FspVector(p=dp, sinks=dsinks.astype(y.sinks.dtype))
 
     def diagonal(self, t=0.0, data: Optional[ShardedEllData] = None
@@ -336,6 +354,7 @@ class ShardedEllOperator(EllOperator):
                                            self.dtype), rep))
 
     def comm_values_per_matvec(self) -> int:
-        """Values crossing ICI per matvec (for the scaling report);
+        """Values crossing between devices per matvec (for the scaling
+        report);
         counts the padded exchange actually wired."""
         return self._D * self._D * self._halo_floor

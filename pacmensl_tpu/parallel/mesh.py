@@ -1,6 +1,6 @@
 """Device-mesh sharding of the FSP state space.
 
-TPU-native replacement for the reference's MPI domain decomposition
+Replacement for the reference's MPI domain decomposition
 (``src/StateSet/StateSetBase.h:133-144``: contiguous 1-D row partition of
 the state space across ranks, with PETSc VecScatter halo exchange inside
 MatMult).  Here the probability array carries a ``NamedSharding`` over a
@@ -8,10 +8,12 @@ MatMult).  Here the probability array carries a ``NamedSharding`` over a
 
 * box backend: the box is sharded along its largest axis; the stencil
   shifts of the matrix-free operator lower to neighbor collective-permutes
-  over ICI (the halo exchange), and reductions to psums.
-* ELL backend: the flat state vector is sharded along its only axis; the
-  matvec gather lowers to an all-gather (a shard_map halo formulation is
-  the planned optimization, SURVEY.md §7 M2/M3).
+  (the halo exchange, carried by NCCL on GPUs), and reductions to psums.
+* ELL backend: the flat state vector is sharded along its only axis.
+  Under GSPMD the plain operator's gather lowers to an all-gather;
+  :class:`~pacmensl_tpu.parallel.halo_ell.ShardedEllOperator` (what the
+  solver builds on a mesh) exchanges only the halo, with one
+  ``all_to_all``.
 
 The reference's dynamic load re-balancing (Zoltan migration) corresponds
 to re-applying ``device_put`` with a new sharding after expansion — data
@@ -46,10 +48,9 @@ def choose_shard_axis(shape: Tuple[int, ...], n_shards: int) -> Optional[int]:
     if not shape:
         return None
     # device_put requires even sharding.  Axis 0 is preferred when it
-    # divides evenly: the fused sharded kernel exchanges halos along
-    # axis 0 (contiguous planes in the C-order flat view,
-    # parallel/halo_box.py), and the solver pads axis 0 to guarantee
-    # divisibility.  Otherwise fall back to the largest divisible axis.
+    # divides evenly (the solver pads axis 0 to guarantee that, and its
+    # halo planes are contiguous in the C-order layout).  Otherwise fall
+    # back to the largest divisible axis.
     if shape[0] >= n_shards and shape[0] % n_shards == 0:
         return 0
     order = np.argsort(shape)[::-1]

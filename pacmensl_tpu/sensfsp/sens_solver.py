@@ -79,8 +79,7 @@ class SensFspSolverMultiSinks(FspSolverMultiSinks):
         if self._backend_used == "box":
             self._operator = SensOperator(
                 self._model_int, self._space, BoxOperator,
-                dtype=self.dtype, use_pallas=self._pallas_mode,
-                mesh=self.mesh)
+                dtype=self.dtype)
         elif self.mesh is not None:
             from ..parallel.halo_ell import ShardedEllOperator
 

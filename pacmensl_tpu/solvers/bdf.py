@@ -29,8 +29,7 @@ from jax import lax
 from ..config import DEFAULT_DTYPE
 from ..ops import vecops as vo
 from ..ops.gmres import gmres
-from .base import (layout2d_adapter,
-                   wrap_stop_check, make_trace, trace_record,
+from .base import (wrap_stop_check, make_trace, trace_record,
                    MatVec, StopCheck, SolveResult, SolveStats,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
                    STATUS_CONTINUE, mv_per_dispatch_default)
@@ -133,18 +132,10 @@ class BdfSolver:
 
         n_c = y0.sinks.shape[0]
 
-        # ---- 2-D tiling adaptation (TPU layout; see layout2d_adapter):
-        # the Nordsieck-difference history D and the GMRES basis are
-        # stacked buffers whose per-step appends would otherwise pay a
-        # full-vector relayout copy each
-        y0, to2d, restore = layout2d_adapter(y0)
-        mv_native = mv
-        mv = lambda t, yy: to2d(mv_native(t, restore(yy)))  # noqa: E731
-
         def fsp_excess(t, y):
             if self.stop_check is None:
                 return jnp.full((n_c,), -1.0, dtype)
-            return jnp.asarray(self.stop_check(t, restore(y), stop_aux),
+            return jnp.asarray(self.stop_check(t, y, stop_aux),
                                dtype).reshape(n_c)
 
         # ---- initial h (order-1 heuristic, as scipy BDF)
@@ -358,7 +349,7 @@ class BdfSolver:
         # non-advancing resume loops instead)
         status = jnp.where((status == STATUS_OK) & (t < t_final),
                            STATUS_CONTINUE, status)
-        return SolveResult(y=restore(vo.basis_get(D, 0)), t=t,
+        return SolveResult(y=vo.basis_get(D, 0), t=t,
                            status=status,
                            stats=SolveStats(n_steps, n_rej, n_mv),
                            viol_excess=viol, trace=tr)

@@ -3,7 +3,7 @@
 The reference's TsFsp adapter accepts any PETSc TS method and auto-wires
 ``IFunction F = A p - p'`` / ``IJacobian A - aI`` for implicit types
 (``src/OdeSolver/TsFsp.cpp:227-274``).  This module is the pluggable
-second implicit method of that contract on TPU: the trapezoid rule
+second implicit method of that contract: the trapezoid rule
 
     (I - h/2 A(t+h)) y1 = (I + h/2 A(t)) y0
 

@@ -7,7 +7,7 @@ m in [m_min, m_max] chosen by a cost model, local error from the last
 Hessenberg entries, dense ``expm`` on the small Hessenberg matrix, and
 solution updates ``y = beta * Vm @ F[:, 0]``.
 
-TPU-first design: the **entire** adaptive loop — basis build, Hessenberg
+Accelerator-first design: the **entire** adaptive loop — basis build, Hessenberg
 expm, error control, FSP stop-check, and the step-halving interpolation
 retry (reference GetDky + halving, KrylovFsp.cpp:54-78) — is one jitted
 ``lax.while_loop`` program.  The Krylov dimension is a traced integer over
@@ -36,12 +36,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax import lax
-from ..ops.expm import expm   # TPU-safe f64 expm (no LU)
+from ..ops.expm import expm   # matmul-only f64 expm (no LU)
 
 from ..config import DEFAULT_DTYPE
 from ..ops import vecops as vo
 from .base import (MatVec, StopCheck, SolveResult, SolveStats,
-                   layout2d_adapter,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
                    STATUS_CONTINUE, mv_per_dispatch_default,
                    wrap_stop_check, make_trace, trace_record)
@@ -164,15 +163,10 @@ class KrylovSolver:
 
         n_c = y0.sinks.shape[0]
 
-        # ---- 2-D tiling adaptation (TPU layout; see layout2d_adapter)
-        y0, to2d, restore = layout2d_adapter(y0)
-        mv_native = mv
-        mv = lambda t, yy: to2d(mv_native(t, restore(yy)))  # noqa: E731
-
         def fsp_excess(t, y):
             if self.stop_check is None:
                 return jnp.full((n_c,), -1.0, dtype)
-            return jnp.asarray(self.stop_check(t, restore(y), stop_aux),
+            return jnp.asarray(self.stop_check(t, y, stop_aux),
                                dtype).reshape(n_c)
 
         def step(carry):
@@ -378,6 +372,6 @@ class KrylovSolver:
         # base.STATUS_CONTINUE)
         status = jnp.where((status == STATUS_OK) & (t < t_final),
                            STATUS_CONTINUE, status)
-        return SolveResult(y=restore(y), t=t, status=status,
+        return SolveResult(y=y, t=t, status=status,
                            stats=SolveStats(n_steps, n_rej, n_mv),
                            viol_excess=viol, trace=tr)

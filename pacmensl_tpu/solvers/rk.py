@@ -25,7 +25,6 @@ from jax import lax
 from ..config import DEFAULT_DTYPE
 from ..ops import vecops as vo
 from .base import (wrap_stop_check, make_trace, trace_record,
-                   layout2d_adapter,
                    MatVec, StopCheck, SolveResult, SolveStats,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE)
 
@@ -151,15 +150,10 @@ class RKSolver:
         mv = self._mv(data)
         n_c = y0.sinks.shape[0]
 
-        # ---- 2-D tiling adaptation (TPU layout; see layout2d_adapter)
-        y0, to2d, restore = layout2d_adapter(y0)
-        mv_native = mv
-        mv = lambda t, yy: to2d(mv_native(t, restore(yy)))  # noqa: E731
-
         def fsp_excess(t, y):
             if self.stop_check is None:
                 return jnp.full((n_c,), -1.0, dtype)
-            return jnp.asarray(self.stop_check(t, restore(y), stop_aux),
+            return jnp.asarray(self.stop_check(t, y, stop_aux),
                                dtype).reshape(n_c)
 
         h_init = self._initial_step(mv, t0, y0, t_final)
@@ -224,6 +218,6 @@ class RKSolver:
                            STATUS_FSP_STOP, status)
         status = jnp.where((status == STATUS_OK) & (t < t_final),
                            STATUS_FAILURE, status)
-        return SolveResult(y=restore(y), t=t, status=status,
+        return SolveResult(y=y, t=t, status=status,
                            stats=SolveStats(n_steps, n_rej, n_mv),
                            viol_excess=viol, trace=tr)

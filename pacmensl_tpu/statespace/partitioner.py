@@ -1,9 +1,9 @@
 """State-space partitioning / load balancing.
 
-TPU-native re-interpretation of the reference partitioner stack
+Re-interpretation of the reference partitioner stack
 (``src/Partitioner/StatePartitioner*.{h,cpp}``).  The reference drives Zoltan
-to (a) assign states to MPI ranks and (b) physically migrate them.  On a TPU
-mesh, assignment means choosing the contiguous shard boundaries of the sorted
+to (a) assign states to MPI ranks and (b) physically migrate them.  On a
+device mesh, assignment means choosing the contiguous shard boundaries of the sorted
 state axis (GSPMD moves the data), so each strategy reduces to computing a
 **state ordering** plus **weighted block boundaries**:
 
@@ -29,7 +29,7 @@ state axis (GSPMD moves the data), so each strategy reduces to computing a
 Approaches (reference ``PartitioningApproach``): ``PARTITION`` recomputes
 from scratch, ``REPARTITION``/``REFINE`` keep the existing ordering and only
 move the block boundaries (migration-cost-aware: states keep their order, so
-GSPMD moves only boundary slabs over ICI).
+GSPMD moves only boundary slabs between devices).
 """
 from __future__ import annotations
 
@@ -104,9 +104,9 @@ class StatePartitioner:
                       and self.ptype == PartitioningType.BLOCK):
             return PartitionResult(np.arange(n), np.array([0, n]))
         # n_parts == 1 still computes the LOCALITY ordering for GRAPH/
-        # HYPERGRAPH: on the compressed TPU backend the ordering is what
-        # concentrates the gather offsets into the bucket-shift fast
-        # path — it serves the operator, not just shard balance.
+        # HYPERGRAPH: on the compressed backend the ordering is what
+        # concentrates the gather offsets into the bucket-shift path —
+        # it serves the operator, not just shard balance.
 
         hyper = self.ptype == PartitioningType.HYPERGRAPH
         if self.ptype == PartitioningType.BLOCK:

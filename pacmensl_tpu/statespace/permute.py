@@ -1,17 +1,9 @@
 """Species-axis permutation for the dense-box backend.
 
-The fused Pallas kernel flattens the box C-order and serves every stencil
-shift from a [tile + 2*halo, 128] window; the halo is the largest |flat
-shift| = max_r |sum_d s_rd * stride_d|, and stride_0 = n / shape[0].  A
-model whose FIRST species axis is short (hog1p's 4-state gene in a
-28^4-product box) makes any reaction that moves it span n/4 flat elements
-— far beyond the tile budget — and knocks the solve off the kernel onto
-the XLA stencil path, whose N-d temporaries also tile-pad the trailing
-(28, 28) dims by 5.2x (measured OOM at 10.4 GB for one BDF basis buffer).
-
 Orderings are free: position in the box is pure data layout.  Sorting the
-species axes by DESCENDING box extent minimizes stride_0 (= n / largest
-extent) and keeps the trailing dims as large as possible.  This module
+species axes by DESCENDING box extent puts the longest axis first (the
+shard axis under a device mesh) and keeps the trailing dims as large as
+possible.  This module
 rewrites a (model, constraints, initial states) problem into an internal
 species order: stoichiometry columns and initial-state columns permute,
 while propensity/constraint callables receive a column-remapping view so
@@ -20,8 +12,7 @@ sinks) keep user order — only coordinate inputs are remapped — so the
 driver's bookkeeping and results need no translation except the state
 columns of the final distribution.
 
-The reference has no analogue: PETSc's sparse rows are layout-free.  This
-is a TPU-layout concern only.
+The reference has no analogue: PETSc's sparse rows are layout-free.
 """
 from __future__ import annotations
 
@@ -35,8 +26,7 @@ from .constraints import ConstraintSet
 
 class _PermCols:
     """Column-remapping view: ``v[:, i]`` reads column ``inv[i]`` of the
-    wrapped object.  Works over jnp/numpy arrays and the kernel's
-    CoordStates duck type alike (both support ``x[:, int]``/``astype``)."""
+    wrapped object (anything supporting ``x[:, int]``/``astype``)."""
 
     __slots__ = ("_x", "_inv")
 
@@ -64,16 +54,9 @@ class _PermCols:
 
 
 def choose_axis_order(box_extents) -> Optional[np.ndarray]:
-    """Axis order minimizing both kernel halo and tile padding; None
-    when the current order already matches.
-
-    Two layout costs pull on the order: the fused kernel's halo is
-    stride_0 = n / shape[0] (wants the LARGEST extent first), and any
-    box-shaped device array tile-pads its trailing two dims toward
-    (8, 128) — f32 — or (32, 128) — bool/int8 (wants the trailing dims
-    as large as possible; a 4-extent gene axis last measured 32x f32
-    padding).  Assignment: largest extent -> axis 0, second and third
-    largest -> the last two axes (second-largest in the 128-lane slot),
+    """Axis order by extent; None when the current order already
+    matches.  Assignment: largest extent -> axis 0 (the shard axis),
+    second and third largest -> the last two axes (second-largest last),
     the rest (smallest extents) in the middle."""
     ext = np.asarray(box_extents, dtype=np.int64)
     S = ext.shape[0]
@@ -118,7 +101,7 @@ def permute_model(model: Model, order) -> Model:
 
 def permute_constraints(cs: ConstraintSet, order,
                         num_species: int) -> ConstraintSet:
-    """ConstraintSet whose fn/components read internally-ordered
+    """ConstraintSet whose fn reads internally-ordered
     coordinates; constraint OUTPUT order (bounds, sinks) is unchanged.
     Default (fn=None) coordinate constraints become explicit user-column
     getters so their output order stays the user's species order."""
@@ -130,12 +113,6 @@ def permute_constraints(cs: ConstraintSet, order,
             import jax.numpy as jnp
             return jnp.stack([x[:, int(inv[i])]
                               for i in range(num_species)], axis=1)
-        fn.components = tuple(
-            (lambda x, _c=int(inv[i]): x[:, _c])
-            for i in range(num_species))
         return ConstraintSet(fn, cs.bounds, cs.expansion_factors)
     fn = _wrap_cols(cs.fn, inv)
-    comps = getattr(cs.fn, "components", None)
-    if comps is not None:
-        fn.components = tuple(_wrap_cols(c, inv) for c in comps)
     return ConstraintSet(fn, cs.bounds, cs.expansion_factors)

@@ -23,7 +23,7 @@ representation choices).
 
 This backend exists for exact set-parity with the reference (BFS-reachable
 states only) and for constraint shapes too sparse for the dense-box backend;
-the box backend is preferred on TPU whenever the fill ratio allows.
+the box backend serves coordinate-bound (hyper-rectangle) shapes.
 """
 from __future__ import annotations
 
@@ -242,7 +242,7 @@ class StateSet:
     def reorder(self, perm) -> None:
         """Physically reorder the states to a new global ordering.
 
-        TPU analogue of Zoltan auto-migration moving state columns between
+        Analogue of Zoltan auto-migration moving state columns between
         ranks (reference ``StatePartitionerBase.cpp:186-239``): here the
         ordering IS the layout (position = global index), so migration is
         a host-side permutation plus a directory rebuild; GSPMD moves the

@@ -52,7 +52,7 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
                  precision: str = "native", **kw):
         super().__init__(backend=backend, **kw)
         self.gmres_tol = float(gmres_tol)
-        #: "native" = solve in the solver dtype (f64 on CPU, f32 on TPU);
+        #: "native" = solve in the solver dtype (float64 by default);
         #: "df64" = double-float emulation on the accelerator (box
         #: backend): f64-accurate operator entries + compensated GMRES —
         #: the path past the measured f32 wall (Jacobi-GMRES divergence
@@ -77,7 +77,6 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
             raise SetupError(
                 "precision='df64' requires the box backend (on CPU use "
                 "dtype=float64 instead — native doubles exist there)")
-        op = self._operator
         space = self._space
         key = tuple(space.shape)
         if getattr(self, "_df64_engine", None) is None \
@@ -87,17 +86,12 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
             self._df64_key = key
         eng = self._df64_engine
         mask_host = np.asarray(jax.device_get(space.mask), bool)
-        pg = p_guess
-        if pg.ndim == 1 and getattr(op, "padded_layout", False):
-            pg = op.from_padded(pg)
-        pg = np.asarray(jax.device_get(pg), np.float32).reshape(-1)
+        pg = np.asarray(jax.device_get(p_guess), np.float32).reshape(-1)
         pi64, converged, rnorm, raw = eng.solve(
             pg, mask_host, gmres_tol=self.gmres_tol)
         sinks64 = eng.sinks_host(pi64, mask_host, self.constraints)
         self.pi64_ = pi64
         pi = jnp.asarray(pi64.reshape(space.shape), self.dtype)
-        if getattr(op, "padded_layout", False):
-            pi = op.to_padded(pi)
         return (pi, jnp.asarray(sinks64, self.dtype),
                 np.bool_(converged), np.float64(rnorm), np.float64(raw))
 
@@ -118,12 +112,6 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
 
             def run(x0, data, n_valid):
                 diag = op.diagonal(0.0, data)
-                if diag.shape != x0.shape:
-                    # box backend, fused-kernel padded layout: action
-                    # vectors are flat [n_pad] while diagonal() is
-                    # box-shaped — align them (padding slots are zero,
-                    # so sums/dots below see only valid states)
-                    diag = op.to_padded(diag)
                 # Jacobi LEFT preconditioner: CME generator diagonals
                 # span orders of magnitude across the expanded space;
                 # unpreconditioned GMRES(30) exhausted its restart budget
@@ -150,8 +138,8 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
                     return (av + alpha * diag) / safe_d
 
                 # dtype-aware target: the 1e-12 default is unreachable
-                # in f32 (the chip's native precision) — floor the
-                # relative tolerance at 64*eps so a TPU solve converges
+                # in f32 — floor the relative tolerance at 64*eps so an
+                # f32 solve converges
                 # at its arithmetic's floor instead of exhausting the
                 # restart budget and hard-failing (f64 runs keep the
                 # 1e-12 target: 64*eps_f64 ~ 1.4e-14 < 1e-12).

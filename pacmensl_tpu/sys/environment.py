@@ -2,7 +2,7 @@
 
 Equivalent of the reference's ``PACMENSLInit/PACMENSLFinalize`` and RAII
 ``Environment`` (``src/Sys/Sys.h:62-80``, ``Sys.cpp:31-63,122-197``), which
-idempotently initialize MPI + PETSc + Zoltan.  In the TPU build there is no
+idempotently initialize MPI + PETSc + Zoltan.  Here there is no
 process-level runtime to boot — JAX owns the devices — so the Environment's
 job is (a) idempotent ``jax.distributed`` initialization for multi-host runs,
 (b) constructing and caching the 1-D device mesh over which the state axis is
@@ -90,7 +90,7 @@ class Environment:
     def mesh(self, n_devices: Optional[int] = None) -> Mesh:
         """1-D mesh over ``STATE_AXIS`` (the FSP domain-decomposition axis).
 
-        This is the TPU analogue of the reference's contiguous 1-D row
+        This is the analogue of the reference's contiguous 1-D row
         partition of the state space across MPI ranks
         (``StateSetBase.h:133-144``).
         """

@@ -1,6 +1,6 @@
 """Event logging / tracing / profiling.
 
-TPU-native equivalent of the reference's PETSc event-log system
+Equivalent of the reference's PETSc event-log system
 (``src/StateSet/StateSetBase.cpp:661-678``, ``FspSolverMultiSinks.cpp:283-301``
 and ``ReduceComponentTiming`` at ``:467-516``): named phase timers with
 call counts, plus per-ODE-step traces (model time, #equations, wall time;

@@ -1,6 +1,6 @@
 """Mixed-radix state indexing.
 
-TPU-native equivalent of the reference index math in
+Equivalent of the reference index math in
 ``src/Sys/pacmenMath.h:33-213``: linearize N-dimensional non-negative integer
 states into scalar keys (first species fastest, MATLAB-style), invert the
 map, and deduplicate state columns by key.

@@ -2,7 +2,7 @@
 test_distributed.py; not collected by pytest).
 
 Each process owns 4 virtual CPU devices; together they form an 8-device
-global mesh — the TPU-build analogue of running the reference under
+global mesh — the analogue of running the reference under
 ``mpirun -np 2`` (SURVEY.md §4: multi-process behavior is tested by
 actually running multi-process).  The worker builds the toggle state set
 deterministically, assembles the halo-exchange sharded ELL operator over

@@ -1,13 +1,11 @@
 """Backend routing + mid-solve box->ELL migration.
 
-Round-3 change: custom-constraint (non-hyper-rectangle) solves route to
-the dense box backend wherever the fused stencil kernel runs (TPU),
-because a masked box at the measured 12-40% fill beats the gather matvec
-by ~2 orders of magnitude per valid nonzero.  The safety valve is a
+Custom-constraint (non-hyper-rectangle) solves route to the compressed
+backend by default; a box-backend solve carries a safety valve, a
 mid-solve migration to the compressed backend when expansion outgrows
 the vector-memory budget (PACMENSL_BOX_MEM_BUDGET) or fill collapses.
-These tests pin the migration semantics and box/ELL agreement for the
-flagship custom-constraint shape on CPU.
+These tests pin the routing, the migration semantics and box/ELL
+agreement for the flagship custom-constraint shape.
 """
 import os
 
@@ -67,16 +65,14 @@ def test_box_migrates_to_ell_on_budget(monkeypatch):
 
 @pytest.mark.medium
 def test_auto_routing_on_cpu_prefers_ell_for_custom_fn():
-    """On CPU (no fused kernel) auto keeps custom constraints on the
-    compressed backend."""
+    """Auto keeps custom constraints on the compressed backend."""
     _, s = _solve("auto", t_final=0.05)
     assert s._backend_used == "ell"
 
 
 def test_hog1p_5d_box_matches_ell():
     """The 5-species time-varying hog1p benchmark through the dense box
-    backend (the TPU auto-route for its custom gated-sum constraints)
-    must match the compressed backend."""
+    backend must match the compressed backend."""
     b = pm.models.hog1p_5d()
 
     def run(backend):

@@ -70,7 +70,7 @@ def test_box_operator_never_destroys_mass(name):
     b = getattr(pm.models, name)()
     cs = ConstraintSet(b.constraint, b.bounds, b.expansion_factors)
     space = BoxStateSpace(b.model.stoichiometry, cs, b.x0)
-    op = BoxOperator(b.model, space, use_pallas=False)
+    op = BoxOperator(b.model, space)
     rng = np.random.default_rng(1)
     p = rng.random(space.shape) * np.asarray(space.mask_host, np.float64)
     y = FspVector(p=jnp.asarray(p), sinks=jnp.zeros(cs.num_constraints))

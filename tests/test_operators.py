@@ -161,7 +161,7 @@ def test_sink_rows_capture_outflow():
 
 def test_ell_bucket_gather_matches_plain(monkeypatch):
     """The bucket-shift gather (dynamic rolls + compacted residue — the
-    TPU fast path for compressed spaces) must reproduce the plain XLA
+    roll-based path for compressed spaces) must reproduce the plain XLA
     gather exactly, including across an expansion-style reassembly."""
     import jax.numpy as jnp
     from pacmensl_tpu.statespace.state_set import StateSet
@@ -224,40 +224,25 @@ def test_ell_bucket_full_solve_matches(monkeypatch):
     assert np.abs(d.p - pdf).sum() <= 1e-6
 
 
-def test_corner_sink_activity_matches_full_sweep():
-    """The multilinear corner shortcut for structural sink activity must
-    (a) match the full box sweep exactly on every bundled model, and
-    (b) refuse non-multilinear components (quadratic), falling back to
-    the sweep (which catches e.g. a death reaction increasing x^2 at
-    x = 0)."""
-    from pacmensl_tpu.ops.box_operator import BoxOperator
-    from pacmensl_tpu.statespace.box_space import BoxStateSpace
+def test_ell_plain_reassembly_keeps_compiled_shapes(monkeypatch):
+    """In plain-gather mode an expansion inside the padded capacity keeps
+    every jit argument's shape: the bucket arrays (whose top-K offsets
+    move every epoch) are not passed, so the solve is not recompiled."""
+    import jax.numpy as jnp
+    from pacmensl_tpu.statespace.state_set import StateSet
     from pacmensl_tpu.statespace.constraints import ConstraintSet
+    from pacmensl_tpu.ops.ell_operator import EllOperator
 
-    for name in ("toggle", "repressilator", "hog1p_5d"):
-        b = getattr(pm.models, name)()
-        cs = ConstraintSet(b.constraint, b.bounds, b.expansion_factors)
-        sp = BoxStateSpace(b.model.stoichiometry, cs, b.x0)
-        op = BoxOperator(b.model, sp, dtype=jnp.float64, use_pallas=False)
-        corner = op._corner_sink_activity()
-        assert corner is not None, name
-        op._sink_active_cache = None
-        orig = op._corner_sink_activity
-        op._corner_sink_activity = lambda: None
-        full = op._sink_activity()
-        op._corner_sink_activity = orig
-        assert np.array_equal(corner, full), name
-
-    def quad(x):
-        return jnp.stack([x[:, 0], x[:, 1], x[:, 0] * x[:, 0]], axis=1)
-    quad.components = (lambda x: x[:, 0], lambda x: x[:, 1],
-                       lambda x: x[:, 0] * x[:, 0])
-    b = pm.models.toggle()
-    cs = ConstraintSet(quad, np.array([8, 8, 64]),
-                       np.array([0.2, 0.2, 0.2]))
-    sp = BoxStateSpace(b.model.stoichiometry, cs, b.x0)
-    op = BoxOperator(b.model, sp, dtype=jnp.float64, use_pallas=False)
-    assert op._corner_sink_activity() is None
-    full = op._sink_activity()
-    # death of species 0 increases x0^2 at x0 = 0 — only the sweep sees it
-    assert full[2, 2]
+    monkeypatch.delenv("PACMENSL_ELL_GATHER", raising=False)
+    b = pm.models.repressilator()
+    cs = ConstraintSet(b.constraint, b.bounds, b.expansion_factors)
+    ss = StateSet(b.model.stoichiometry, cs, init_states=b.x0)
+    ss.expand()
+    op = EllOperator(b.model, ss, dtype=jnp.float64,
+                     capacity_floor=8 * ss.num_states)
+    shapes = jax.tree_util.tree_map(jnp.shape, op.data())
+    ss.set_bounds(cs.expanded_bounds(np.ones(6, bool)))
+    ss.expand()
+    assert not op.reassemble()
+    assert jax.tree_util.tree_map(jnp.shape, op.data()) == shapes
+    assert op.data().rem_row is None

@@ -1,6 +1,6 @@
 """Eager box-capacity preallocation + device-built incremental masks.
 
-Round-3 machinery: adaptive solves on TPU water-fill the vector-memory
+With ``preallocate=True``, adaptive solves water-fill the vector-memory
 budget as box capacity up-front (one compiled solve program for the whole
 expansion trajectory) and rebuild the validity mask per epoch with a
 device-side BFS seeded from the previous mask.  These tests force the

@@ -112,3 +112,18 @@ def test_partitioner_block_and_graph():
         assert res.boundaries[0] == 0 and res.boundaries[-1] == ss.num_states
         assert (np.diff(res.boundaries) >= 0).all()
         assert np.sort(res.order).tolist() == list(range(ss.num_states))
+
+
+def test_host_constraint_sweeps_compile_once_per_size_class():
+    """Host-side constraint evaluations pad rows to power-of-two classes
+    and share one jit through with_bounds copies, so an adaptive solve's
+    ever-changing sweep sizes do not compile a program each."""
+    cs = ConstraintSet(simplex_constraint, [3, 3, 3])
+    rng = np.random.default_rng(0)
+    for n, c in ((300, cs), (400, cs.with_bounds([5, 5, 5])), (511, cs)):
+        x = rng.integers(0, 6, size=(n, 2))
+        got = c.satisfied(x)
+        want = np.asarray(simplex_constraint(jnp.asarray(x))) <= c.bounds
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(c.all_satisfied(x), want.all(axis=1))
+    assert cs._jit_cache["values"]._cache_size() == 1
